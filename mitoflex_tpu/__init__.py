@@ -1,14 +1,14 @@
-"""mitoflex_tpu — a TPU-native mitogenome analysis engine.
+"""mitoflex_tpu — a JAX mitogenome analysis engine.
 
 A from-scratch reimplementation of the capabilities of MitoFlex
 (reference: /root/reference, an "almost all-in-one pipeline for Mitogenome
 analysis from de novo NGS data", MitoFlex.py:59-71), redesigned for
-JAX/XLA/Pallas on TPU:
+JAX/XLA on an accelerator (one NVIDIA H100 is the reference device):
 
-- read quality filtering runs as a bit-packed Pallas/VPU kernel over batched
-  reads instead of a Rust stream filter (reference filter/filter_bin);
+- read quality filtering runs as one fused XLA pass over batched reads
+  instead of a Rust stream filter (reference filter/filter_bin);
 - assembly is a sort-based de Bruijn graph engine built from XLA primitives
-  (lax.sort / searchsorted / segment_sum / while_loop) over HBM-resident
+  (lax.sort / searchsorted / segment_sum / while_loop) over device-resident
   k-mer tables instead of shelling out to megahit_core;
 - mito-candidate picking uses an on-device profile-HMM Viterbi scan
   (reference: nhmmer, annotation/annotation_tookit.py:510-548);

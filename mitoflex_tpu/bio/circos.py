@@ -7,7 +7,7 @@ trailing underscores (``plot_``, ``plot__`` all emit ``plot``); ``collapse``
 turns the tree into nested dicts and ``dict2circos`` renders circos-conf
 text (``<block>...</block>`` sections and ``key = value`` lines).
 
-The TPU build renders its circular plot with matplotlib
+This package renders its circular plot with matplotlib
 (stages/visualize.py) — this DSL is kept because the reference also uses
 it as a general config namespace and emits circos.conf for users who want
 to re-render with circos proper.

@@ -106,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="mitoflex-tpu",
         description=(
-            "TPU-native mitogenome analysis: filter, assemble, find, annotate "
+            "Mitogenome analysis on JAX: filter, assemble, find, annotate "
             f"and visualize mitochondrial genomes from NGS data. v{__version__}"
         ),
     )

@@ -16,7 +16,7 @@ expert knobs (configurations.py) so behavior matches out of the box.
 ``--generate-config`` / ``--config`` parity is provided by
 :func:`generate_config` / :func:`load_config_file`.
 
-Reference knobs with no TPU analog (intentionally absent):
+Reference knobs with no analog here (intentionally absent):
 - assemble.max_mem_percent / external_temp — megahit host-memory budgeting
   and tmpfs staging; the engine streams fixed-shape device chunks.
 - assemble.disable_acc — CPU-feature (POPCNT) selection; no CPU kernels.
@@ -36,6 +36,8 @@ import dataclasses
 import runpy
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
+
+from .utils.logger import logger
 
 
 def _parse_int_list(v) -> List[int]:
@@ -58,7 +60,7 @@ class FilterConfig:
     truncate_only: bool = False      # bypass filtering, only truncate
     compress_output: bool = False    # gzip clean fastq (configurations.py:45-48)
 
-    # TPU engine knobs (no reference equivalent)
+    # device engine knobs (no reference equivalent)
     batch_reads: int = 65536         # reads per device batch
     max_read_len: int = 256          # pad/bucket bound for read length
 
@@ -94,11 +96,10 @@ class AssembleConfig:
     disconnect_ratio: float = 0.1    # weak-link cut vs strongest sibling
     low_local_ratio: float = 0.2     # local low-depth unitig removal
 
-    # TPU engine knobs
+    # device engine knobs
     kmer_chunk: int = 1 << 22        # k-mers per device sort chunk
     read_chunk: int = 16384          # reads per counting batch (~3.7M windows
-                                     # at L=256 — the measured device sort
-                                     # sweet spot; amortizes per-chunk
+                                     # at L=256; amortizes per-chunk
                                      # dispatch at multi-Gbp scale)
     max_contigs: int = 1 << 16       # static bound on contig table size
     prefilter_reads: bool = False    # at k>kmin, only count reads mapping to
@@ -181,7 +182,7 @@ class BimConfig:
 @dataclass
 class RuntimeConfig:
     """Run-level knobs (reference 'Universal arguments', arguments.py:90-112)
-    plus TPU runtime controls."""
+    plus device runtime controls."""
 
     workname: str = "mitoflex"
     basedir: str = "."
@@ -189,10 +190,18 @@ class RuntimeConfig:
     log_level: int = 2               # INFO
     profile_dir: Optional[str] = None  # path to profile data (HMM/CM/protein DBs)
     taxonomy_dump: Optional[str] = None  # path to an NCBI taxdump dir, optional
-    # device topology: None = all local devices, data-parallel
+    # device topology: None = all local devices, data-parallel; [1] = one
+    # device, no mesh
     mesh_shape: Optional[List[int]] = None
     mesh_axes: List[str] = field(default_factory=lambda: ["data"])
-    use_tpu: bool = True             # False forces pure-XLA CPU path (tests)
+
+
+# Keys that older versions wrote (e.g. through --generate-config) and that
+# no longer exist: a config file may still name them; they are dropped with
+# a warning instead of failing the run.
+_REMOVED_KEYS = {
+    ("run", "use_tpu"): "the device is whatever JAX reports",
+}
 
 
 @dataclass
@@ -220,6 +229,10 @@ class PipelineConfig:
                 raise KeyError(f"Not a config section: {section!r}")
             names = {f.name for f in dataclasses.fields(sub)}
             for k, v in values.items():
+                if (section, k) in _REMOVED_KEYS:
+                    logger.warn(f"config key {section}.{k} is no longer used "
+                                f"and is ignored: {_REMOVED_KEYS[section, k]}")
+                    continue
                 if k not in names:
                     raise KeyError(f"Unknown config key: {section}.{k}")
                 cur = getattr(sub, k)

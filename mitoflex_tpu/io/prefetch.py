@@ -2,7 +2,7 @@
 
 The reference pipeline overlaps I/O with compute through Unix pipes and
 gzip FIFOs between processes (assemble_wrapper.py:171-196,
-bim/bim.py:51-56). The TPU engine's analog: a daemon thread pulls batches
+bim/bim.py:51-56). This engine's analog: a daemon thread pulls batches
 from a (native C++ or Python) reader generator into a bounded queue while
 the main thread keeps the device busy — disk decode and device compute
 overlap instead of alternating.

@@ -76,7 +76,7 @@ def _batched_sw(q_rows, t_rows, submat, gap_open, gap_extend, fill, batch=64,
     """Align row i of q_rows vs row i of t_rows; returns numpy SwHits.
 
     With a >1-device ``mesh`` the (query, target) pairs shard over the
-    data axis (parallel.mesh.sw_align_sharded) — the TPU replacement for
+    data axis (parallel.mesh.sw_align_sharded) — the replacement for
     the reference's tblastn query-DB multiprocessing.Pool
     (annotation_tookit.py:74-97); per-row results are bit-identical to
     the single-device kernel."""

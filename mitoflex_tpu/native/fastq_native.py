@@ -1,14 +1,20 @@
 """ctypes bindings for the native FASTQ batch reader (fastq_reader.cpp).
 
-Builds libmfxnative.so on first use via the in-tree Makefile (no pybind11
-in the image; plain C ABI + ctypes). ``available()`` gates all use; the
-Python parser in io/fastq.py is the drop-in fallback.
+The shared library (this reader plus dedup.cpp, merge.cpp and graph.cpp)
+is built on first use from the tracked sources, with plain C ABI + ctypes.
+The build lands in ``native/build/`` under a name keyed by the sources'
+contents, the compiler flags and the host, so an edited source or a copy
+of the tree on another machine triggers a rebuild, and a library built
+elsewhere is never loaded. ``available()`` gates all use; the Python parser
+in io/fastq.py is the drop-in fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import Iterator, Optional
@@ -16,10 +22,34 @@ from typing import Iterator, Optional
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libmfxnative.so")
+_BUILD_DIR = os.path.join(_DIR, "build")
+_SRCS = ("fastq_reader.cpp", "dedup.cpp", "merge.cpp", "graph.cpp")
+# portable flags (no -march=native): the library must run on any x86-64
+# host the tree is copied to
+_CXXFLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
+
+
+def library_path() -> str:
+    """Where the library for these sources, flags and host lives."""
+    h = hashlib.sha256()
+    for f in _SRCS:
+        with open(os.path.join(_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(_CXXFLAGS).encode())
+    h.update(f"{platform.machine()} {platform.node()}".encode())
+    return os.path.join(_BUILD_DIR, f"libmfxnative-{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", tmp,
+           *(os.path.join(_DIR, f) for f in _SRCS), "-lz"]
+    subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+    os.replace(tmp, path)  # atomic: concurrent builders never see a torn file
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -29,23 +59,18 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        srcs = [os.path.join(_DIR, f)
-                for f in ("fastq_reader.cpp", "dedup.cpp", "merge.cpp",
-                          "graph.cpp")]
-        if not os.path.exists(_SO) or any(
-            os.path.getmtime(_SO) < os.path.getmtime(s) for s in srcs
-        ):
-            try:
-                subprocess.run(
-                    ["make", "-s"], cwd=_DIR, check=True,
-                    capture_output=True, timeout=120,
-                )
-            except Exception:
-                _build_failed = True
-                return None
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            so = library_path()
+            if not os.path.exists(so):
+                _build(so)
+            lib = ctypes.CDLL(so)
+        except (OSError, subprocess.SubprocessError) as e:
+            from ..utils.logger import logger
+
+            err = getattr(e, "stderr", b"") or b""
+            logger.warn(f"native library unavailable ({e}) "
+                        f"{err.decode(errors='replace')[-500:]}; "
+                        "using the Python fallbacks")
             _build_failed = True
             return None
         lib.mfx_fastq_open.restype = ctypes.c_void_p

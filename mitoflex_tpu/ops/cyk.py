@@ -6,7 +6,7 @@ fold of each alignment). Two-stage search like Infernal's own pipeline:
 
 1. the CM's embedded HMMER3 filter profile (models/cm.py) is scanned with
    the device Viterbi engine (ops/phmm.py) to find candidate windows —
-   this is the data-volume stage and runs on TPU;
+   this is the data-volume stage and runs on the device;
 2. candidate windows (tRNA scale: <= 128 nt, ~200 states) get an exact
    CYK parse with traceback, vectorized over [i, j] span matrices per
    state (host numpy; small, cold path). The traceback emits the aligned

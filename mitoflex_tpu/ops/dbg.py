@@ -1,6 +1,6 @@
 """De Bruijn graph construction and unitig extraction as XLA passes.
 
-TPU-native replacement for megahit_core's ``seq2sdbg`` + ``assemble`` stages
+Device replacement for megahit_core's ``seq2sdbg`` + ``assemble`` stages
 (reference assemble/assemble_wrapper.py:203-315): instead of a succinct
 BWT-based sDBG built by C++/CUDA code, the graph is a pair of sorted edge
 arrays over dense int32 node ids:
@@ -11,7 +11,7 @@ arrays over dense int32 node ids:
   bidirected and traversal needs no canonical-form branching;
 - nodes are the unique k-mer prefixes/suffixes of edges, given dense ids by
   a multi-word sort-unique; edge endpoint resolution is a vectorized
-  multi-word binary search (a sorted-array join — the TPU answer to the
+  multi-word binary search (a sorted-array join in place of the
   sDBG's rank/select);
 - unitigs (maximal unbranched paths) are extracted by parallel pointer
   doubling (list ranking) over predecessor links — O(log V) gather rounds —
@@ -97,8 +97,8 @@ def graph_unitig_pass(
     prefix, suffix = edge_prefix_suffix(edge_words, k)
     cat = [jnp.concatenate([p, s]) for p, s in zip(prefix, suffix)]
     cat_valid = jnp.concatenate([evalid, evalid])
-    # gather-free unique + sort-join (binary-search joins gather per
-    # iteration, which is catastrophically slow on TPU)
+    # gather-free unique + sort-join (a binary-search join gathers once
+    # per iteration)
     node_words, n_nodes = kmer_ops.unique_words_device(cat, cat_valid)
 
     both_id = kmer_ops.multiword_join_sorted(node_words, n_nodes, cat)

@@ -90,8 +90,8 @@ def genewise_align(
     jcol = jax.lax.broadcasted_iota(jnp.int32, (B, Lq), 1)
     q_in = jcol < q_lens[:, None]
     qc = jnp.clip(queries, 0, K - 1).astype(jnp.int32)
-    # pre-gathered substitution rows; in-scan scores via one-hot matvec
-    # (in-scan table gathers are catastrophically slow on TPU)
+    # pre-gathered substitution rows; in-scan scores via one-hot matvec at
+    # HIGHEST precision, an exact select (not TF32)
     spre = submat[qc]  # [B, Lq, K]
     ext_ramp = gap_extend * jcol.astype(jnp.float32)
 
@@ -115,7 +115,7 @@ def genewise_align(
         aa = target_aa[:, t].astype(jnp.int32)
         t_valid = t < t_lens
         oh = jax.nn.one_hot(jnp.clip(aa, 0, K - 1), K, dtype=jnp.float32)
-        s = jnp.einsum("bk,bjk->bj", oh, spre)
+        s = jnp.einsum("bk,bjk->bj", oh, spre, precision=jax.lax.Precision.HIGHEST)
         s = jnp.where(aa[:, None] == codon.STOP_CODE, -stop_penalty, s)
         valid = jnp.logical_and(q_in, t_valid[:, None])
         s = jnp.where(valid, s, NEG)

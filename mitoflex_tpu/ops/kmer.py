@@ -1,6 +1,6 @@
 """K-mer extraction and counting as XLA passes.
 
-TPU-native replacement for megahit_core's ``count`` stage (reference
+Device replacement for megahit_core's ``count`` stage (reference
 assemble/assemble_wrapper.py:217-224: solid (k+1)-mer extraction with a
 minimum-multiplicity gate). Design:
 
@@ -9,17 +9,18 @@ minimum-multiplicity gate). Design:
   lexicographic order equals base-string lexicographic order and a
   multi-word sort via ``lax.sort(num_keys=W)`` orders k-mers correctly;
 - extraction is a fan of shifted ORs over the [reads, len] code matrix —
-  pure VPU work, one pass over HBM;
+  elementwise work, one pass over device memory;
 - the hot counting path (count_chunk_runs/count_chunk_device) is
   CANONICAL (min of a window's two orientations — half the volume), folds
   validity into all-ones sentinel keys, counts runs with cumsum/cummax
   (no segment_sum scatter), and compacts with a stable flag-keyed sort
-  (no gathers — they are catastrophically slow on TPU);
+  (no gathers);
 - cross-chunk merging is a device-resident LSM (merge_runs_device) with
   host spill (stages/assemble.KmerCounter); the exact both-strand path
   (sort_count_unique/count_chunk) remains for graph-node tables and
   weighted contig re-injection;
-- cross-chip histogram merge rides all_gather over ICI (parallel/mesh.py).
+- cross-device histogram merge rides all_gather / all_to_all
+  (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -215,32 +216,8 @@ def count_chunk_runs(
             for pair in zip(w_f, w_r)
         ]
         valid = jnp.concatenate(valid2).reshape(-1)
-    W = len(words)
-    # MITOFLEX_PALLAS_SORT=1 routes 2-word keys through the Pallas bitonic
-    # sort (ops/psort.py); read at trace time, so flip it before first use
-    import os as _os
-
-    if W == 2 and _os.environ.get("MITOFLEX_PALLAS_SORT") == "1":
-        from . import psort
-
-        n0 = valid.shape[0]
-        # pad to a power of two, and at least one full lane row (128): the
-        # pallas kernel reshapes to (N//128, 128), so tiny chunks must still
-        # land on a LANES multiple (sentinels sort last and are masked)
-        n = max(1 << max(n0 - 1, 1).bit_length(), 128)
-        pad = n - n0
-        if pad:
-            words = [
-                jnp.concatenate([w, jnp.full((pad,), 0xFFFFFFFF, jnp.uint32)])
-                for w in words
-            ]
-            valid = jnp.concatenate([valid, jnp.zeros((pad,), jnp.bool_)])
-        s_words = list(
-            psort.bitonic_sort2(words[0], words[1], tile=min(1 << 14, n))
-        )
-    else:
-        n = valid.shape[0]
-        s_words = list(jax.lax.sort(words, num_keys=W))
+    n = valid.shape[0]
+    s_words = list(jax.lax.sort(words, num_keys=len(words)))
 
     pos = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0).squeeze(-1)
     all_ones = jnp.ones((n,), jnp.bool_)
@@ -307,9 +284,8 @@ def merge_runs_device(
     Runs are (words [cap] x W uint32 sorted with 0xFFFFFFFF padding,
     counts [cap] uint32, n valid). Output capacity = capA + capB.
     SUPERSEDED on the production path by merge_scattered (one pure
-    sorted merge — the Pallas bitonic merge on TPU — with a single
-    re-sum at extraction; measured ~20x this formulation on-chip); kept
-    as the compacted-contract reference and for its tests."""
+    sorted merge with a single re-sum at extraction); kept as the
+    compacted-contract reference and for its tests."""
     W = len(a_words)
     words = [jnp.concatenate([a, b]) for a, b in zip(a_words, b_words)]
     n = words[0].shape[0]
@@ -373,23 +349,6 @@ def merge_runs_device(
 # with zero counts, indistinguishable from (and safely summable with) a real
 # all-T key. One re-sum happens at host extraction where uint64 is free
 # (a device-side cumsum would wrap uint32 at ~4G total occurrences).
-# On TPU the merge itself can ride the Pallas bitonic merge
-# (psort.merge_sorted_runs, log2(n) substages) instead of a full
-# lax.sort (~log^2): MITOFLEX_PALLAS_MERGE=1/0 overrides, default = on
-# for TPU backends (read at trace time — flip before first use).
-
-def _pallas_merge_enabled() -> bool:
-    import os
-
-    flag = os.environ.get("MITOFLEX_PALLAS_MERGE", "")
-    if flag in ("0", "false", "off", "no"):
-        return False
-    if flag in ("1", "true", "on", "yes"):
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
 
 
 @functools.partial(jax.jit, static_argnames=("k", "canonical"))
@@ -398,8 +357,8 @@ def count_chunk_scattered(
 ):
     """Chunk counting producing a SCATTERED device run — the single-sort
     unit the scattered LSM merges (vs count_chunk_device's sort + stable
-    compaction sort). Capacity is padded to a power of two (>= 128) so
-    runs can ride the Pallas bitonic merge."""
+    compaction sort). Capacity is padded to a power of two (>= 128), which
+    bounds the number of distinct merge shapes the LSM compiles."""
     s_words, counts, _is_start, is_end = count_chunk_runs(seqs, lengths, k, canonical)
     sc = jnp.where(is_end, counts, jnp.uint32(0))
     n0 = sc.shape[0]
@@ -421,9 +380,8 @@ def merge_scattered(
 ):
     """Merge two scattered runs: ONE sorted merge with counts as payload.
     Unequal capacities are padded to the larger (all-ones keys, zero
-    counts — appending to a sorted run keeps it sorted). Routes through
-    the Pallas bitonic merge on TPU (log2(n) compare-exchange substages),
-    lax.sort elsewhere."""
+    counts — appending to a sorted run keeps it sorted). The merge is one
+    W-key lax.sort of the concatenation."""
     W = len(a_words)
     na, nb = a_counts.shape[0], b_counts.shape[0]
     if na != nb:
@@ -439,14 +397,6 @@ def merge_scattered(
             a_words, a_counts = _pad(a_words, a_counts, na)
         else:
             b_words, b_counts = _pad(b_words, b_counts, nb)
-    m = a_counts.shape[0]
-    if _pallas_merge_enabled() and m >= 128 and (m & (m - 1)) == 0:
-        from . import psort
-
-        merged = psort.merge_sorted_runs(
-            a_words + [a_counts], b_words + [b_counts], n_keys=W
-        )
-        return merged[:W], merged[W]
     ops = [jnp.concatenate([x, y]) for x, y in zip(a_words, b_words)]
     ops.append(jnp.concatenate([a_counts, b_counts]))
     s = jax.lax.sort(ops, num_keys=W)

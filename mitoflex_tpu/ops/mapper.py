@@ -12,8 +12,8 @@ whole path runs as one jitted XLA computation per read batch:
   packed by ops/kmer.extract_kmers), sorted once with positions;
 - each read contributes sampled 15-mers on both strands; seeds are
   resolved against the index with SORT-BASED joins (a rank join + a
-  payload-fetch join, both gather-free — TPU gathers are catastrophically
-  slow, and a binary search is log2(T) sequential gather rounds), yielding
+  payload-fetch join, both gather-free — a binary search would be log2(T)
+  sequential gather rounds), yielding
   up to ``max_mult`` (contig, diagonal) candidates per seed;
 - candidates are sorted per read and the longest run (= most seeds
   agreeing on one diagonal) wins if it reaches ``min_votes`` and strictly
@@ -38,6 +38,7 @@ from . import kmer as kmer_ops
 K = 15
 SEED_STEP = 4
 MAX_MULT = 4
+INDEX_FLOOR = 1 << 15
 
 
 def _pad_pow2(n: int, floor: int = 256) -> int:
@@ -82,7 +83,10 @@ class ContigIndex:
         keys = keys[order]
         contig = ridx[order].astype(np.int32)
         pos = cidx[order].astype(np.int32)
-        cap = _pad_pow2(len(keys))
+        # one capacity for every mito-scale index (~32 kb of contigs): the
+        # local-extension, remap and visualize indexes then share one
+        # compiled join instead of one per contig set
+        cap = _pad_pow2(len(keys), floor=INDEX_FLOOR)
         pk = np.full(cap, 0xFFFFFFFF, np.uint32)
         pc = np.zeros(cap, np.int32)
         pp = np.zeros(cap, np.int32)
@@ -133,7 +137,7 @@ def _rank_join(table_key: jax.Array, q: jax.Array) -> jax.Array:
     sentinel 2**30 with position suppressed, so they can never win a
     fill). Sort operands are PACKED — (key, tag) into one int32 sort key,
     (tag, row) into one restore key — because every extra operand of a
-    variadic lax.sort multiplies comparator cost on TPU."""
+    variadic lax.sort multiplies comparator cost."""
     T = table_key.shape[0]
     Q = q.shape[0]
     tkey = jnp.where(table_key >= 0, table_key, jnp.int32((1 << 30) + 1))
@@ -322,8 +326,7 @@ def _map_host(
 ):
     """Numpy mirror of _map_device — bit-identical placements (the
     mesh-parity tests compare this host path against the sharded device
-    kernel). The XLA formulation's gather-free sort-joins are built for
-    the TPU; on the CPU backend plain searchsorted against the (small,
+    kernel). On the CPU backend plain searchsorted against the (small,
     cache-resident) index is ~10x faster and was the dominant term of
     the CPU e2e's assemble stage (local-extension mapping sweeps)."""
     B, L = seqs.shape

@@ -1,6 +1,6 @@
 """Profile-HMM local Viterbi scan on device.
 
-TPU-native replacement for nhmmer's DNA profile search (reference hot loop
+Device replacement for nhmmer's DNA profile search (reference hot loop
 #4: annotation/annotation_tookit.py:510-548 shells out to ``nhmmer`` over
 per-clade CDS models). One device call scores a batch of sequence windows
 against one profile and returns per-window best local alignment score plus
@@ -21,7 +21,7 @@ D[t,j] = c[j-1] + cummax_{i<j}(M[t,i] + tMD[i] - c[i]) — computed with an
 associative scan that also carries the argmax's (seq_start, model_start)
 so alignment envelopes come out of the forward pass with no traceback.
 The t loop is a lax.scan; everything inside is vectorized over
-[batch, model_len] on the VPU.
+[batch, model_len].
 
 Kernel scores are in bits (log2-odds vs flat background) for the aligned
 region only; :func:`length_correction_bits` applies HMMER's NJC
@@ -118,14 +118,20 @@ def stage_profile(hmm: ProfileHMM, pad_to: int = 0) -> DeviceProfile:
     )
 
 
+def _select(onehot, table):
+    """Emission lookup as a one-hot product. HIGHEST precision keeps it an
+    exact select: at default precision a GPU may run a float32 product in
+    TF32, which would round the bit scores."""
+    return jnp.matmul(onehot, table, precision=jax.lax.Precision.HIGHEST)
+
+
 def _shift_right(x, fill):
     return jnp.concatenate([jnp.full(x.shape[:-1] + (1,), fill, x.dtype), x[..., :-1]], axis=-1)
 
 
 def _pick4(vals, payloads):
     """Max over 4 candidate arrays with payload selection via where-chains
-    (NO gathers: take_along_axis/argmax-gather lowers catastrophically on
-    TPU — ~200x slower than elementwise selects)."""
+    (no gathers: take_along_axis/argmax-gather per step)."""
     best = vals[0]
     picked = [p[0] for p in payloads]
     for c in range(1, len(vals)):
@@ -171,11 +177,9 @@ def viterbi_scan(
     def step(state, t):
         x = seqs[:, t].astype(jnp.int32)                       # [B]
         x_valid = jnp.logical_and(x < 4, t < lengths)          # [B]
-        # emissions via one-hot matmul (a [B,Lp] table gather per step is
-        # ~200x slower on TPU)
         oh = jax.nn.one_hot(jnp.clip(x, 0, 3), 4, dtype=jnp.float32)
-        em = jnp.where(x_valid[:, None], oh @ msc_t, neg)
-        ei = jnp.where(x_valid[:, None], oh @ isc_t, neg)
+        em = jnp.where(x_valid[:, None], _select(oh, msc_t), neg)
+        ei = jnp.where(x_valid[:, None], _select(oh, isc_t), neg)
 
         Mp = _shift_right(state["M"], NEG)     # M[t-1, j-1]
         Ip = _shift_right(state["I"], NEG)
@@ -298,8 +302,8 @@ def viterbi_scores(
         x = seqs[:, t].astype(jnp.int32)
         x_valid = jnp.logical_and(x < 4, t < lengths)
         oh = jax.nn.one_hot(jnp.clip(x, 0, 3), 4, dtype=jnp.float32)
-        em = jnp.where(x_valid[:, None], oh @ msc_t, neg)
-        ei = jnp.where(x_valid[:, None], oh @ isc_t, neg)
+        em = jnp.where(x_valid[:, None], _select(oh, msc_t), neg)
+        ei = jnp.where(x_valid[:, None], _select(oh, isc_t), neg)
         Mp = _shift_right(M0, NEG)
         Ip = _shift_right(I0, NEG)
         Dp = _shift_right(D0, NEG)

@@ -11,7 +11,7 @@ roles the reference delegates to external C tools:
 - contig overlap scoring for merging.
 
 Formulation: lax.scan over target positions; H/E state vectors over
-[batch, query_len] on the VPU. The within-row F (query-axis gap)
+[batch, query_len]. The within-row F (query-axis gap)
 dependency is closed exactly with an exclusive max-plus prefix scan
 (valid when gap_open >= gap_extend — Farrar's lazy-F argument: an H cell
 that is itself F-derived never seeds a better F). Alignment envelopes
@@ -74,8 +74,8 @@ def sw_align(
     q_in = jcol < q_lens[:, None]
     qc = jnp.clip(queries, 0, K - 1).astype(jnp.int32)
     # pre-gather each query's substitution rows ONCE; per-step scores are
-    # then a one-hot batched matvec (in-scan table gathers are ~200x slower
-    # on TPU)
+    # then a one-hot batched matvec, at HIGHEST precision so it stays an
+    # exact select (a GPU may otherwise run float32 products in TF32)
     spre = submat[qc]  # [B, Lq, K]
 
     ext_ramp = gap_extend * jcol.astype(jnp.float32)
@@ -102,7 +102,7 @@ def sw_align(
         x = targets[:, t].astype(jnp.int32)          # [B]
         t_valid = t < t_lens                          # [B]
         oh = jax.nn.one_hot(jnp.clip(x, 0, K - 1), K, dtype=jnp.float32)
-        s = jnp.einsum("bk,bjk->bj", oh, spre)
+        s = jnp.einsum("bk,bjk->bj", oh, spre, precision=jax.lax.Precision.HIGHEST)
         valid = jnp.logical_and(q_in, t_valid[:, None])
         s = jnp.where(valid, s, NEG)
         is_match = jnp.logical_and(valid, qc == x[:, None])

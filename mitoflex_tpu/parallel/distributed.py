@@ -22,8 +22,7 @@ def init_distributed(
     process_id: Optional[int] = None,
 ) -> Tuple[int, int]:
     """Initialize jax.distributed from args or the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the
-    TPU pod runtime's automatic values). Returns (process_id, n_processes);
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID). Returns (process_id, n_processes);
     (0, 1) when single-process."""
     import jax
 

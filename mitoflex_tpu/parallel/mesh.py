@@ -1,10 +1,10 @@
 """Device mesh and sharded pipeline steps.
 
 The reference is single-node: its concurrency is process pools and thread
-flags (SURVEY.md §2 parallelism table). The TPU engine's scale-out is pure
+flags (SURVEY.md §2 parallelism table). This engine's scale-out is pure
 data parallelism over reads/contigs/windows on a ``jax.sharding.Mesh``
-(axis "data"), with profile tables replicated; cross-chip merges ride XLA
-collectives over ICI:
+(axis "data"), with profile tables replicated; cross-device merges ride XLA
+collectives (NCCL on GPUs):
 
 - read filtering: batch sharded on axis 0, no communication;
 - k-mer counting: each device sort-counts its shard, then the runs merge
@@ -146,9 +146,8 @@ def _partition_merge_local(uw, uc, nu, ndev: int, W: int, inner_i32, slack: floa
     M = uc.shape[0]
     C = int(min(M, max(8, -(-int(M * slack) // ndev))))
     if C >= 64:
-        # pow2 capacity (>=128) so the pairwise scattered merges can
-        # ride the Pallas bitonic merge on TPU (tiny inputs keep the
-        # exact cap and fall back to the lax.sort merge path)
+        # pow2 capacity (>=128) bounds the distinct merge shapes (tiny
+        # inputs keep the exact cap)
         C = min(max(128, 1 << (C - 1).bit_length()), M)
     w0 = _u32_bitcast_i32(uw[0])
     lo = jnp.concatenate([
@@ -167,7 +166,7 @@ def _partition_merge_local(uw, uc, nu, ndev: int, W: int, inner_i32, slack: floa
         # their — possibly foreign-range — keys); only counts are
         # masked. Masking keys to all-ones would put pad rows at the
         # FRONT whenever start was clipped below lo[j], breaking the
-        # ascending-run precondition of the Pallas bitonic merge
+        # ascending-run precondition of the scattered merge
         # downstream. Foreign keys ride with count 0 and vanish in
         # scattered_to_unique's totals>0 compaction.
         cols = [jax.lax.dynamic_slice_in_dim(w, start, C) for w in uw]
@@ -187,8 +186,7 @@ def _partition_merge_local(uw, uc, nu, ndev: int, W: int, inner_i32, slack: floa
                            tiled=False)
     # each received bucket is a sorted scattered run (unique keys,
     # counts>0, all-ones/0 padding): merge them PAIRWISE with the
-    # scattered merge (Pallas bitonic merge on TPU — ~8x the flat
-    # (W+1)-key sort this replaced) and compact once at the end
+    # scattered merge and compact once at the end
     runs = [([x[j, :, i] for i in range(W)], x[j, :, W])
             for j in range(ndev)]
     while len(runs) > 1:
@@ -241,7 +239,7 @@ def count_kmers_sharded_partitioned(
     run by the first key word into n_dev contiguous buckets (uniform
     boundaries — both strands are counted, so keys are symmetric and
     near-uniform on random-ish data), and a single ``all_to_all`` routes
-    bucket j of every device to device j over ICI. Each device then merges
+    bucket j of every device to device j. Each device then merges
     the n_dev sorted runs it received with one weighted sort-count — after
     which device j holds the exact global (keys, counts) table of key
     range j only.

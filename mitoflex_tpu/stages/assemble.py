@@ -72,10 +72,9 @@ class KmerCounter:
     Unweighted chunks are counted AND merged on device: each chunk yields a
     SCATTERED run (count_chunk_scattered — one sort, no compaction); runs
     merge pairwise like a binary counter with a PURE sorted merge
-    (merge_scattered — the Pallas bitonic merge on TPU, lax.sort
-    elsewhere; no per-merge re-sum, no gathers, no per-chunk host
-    transfer). Per-key totals are re-summed exactly once at extraction
-    (pull_scattered, uint64 on host). Runs whose capacity would exceed
+    (merge_scattered, one lax.sort; no per-merge re-sum, no gathers, no
+    per-chunk host transfer). Per-key totals are re-summed exactly once
+    at extraction (pull_scattered, uint64 on host). Runs whose capacity would exceed
     ``max_device_rows`` spill to the host once and continue merging there
     (merge_sorted_counts). Weighted chunks (contig re-injection) always
     use the exact host path.
@@ -97,11 +96,9 @@ class KmerCounter:
         self.canonical = canonical
         self.max_device_rows = max_device_rows
         if prefer_host is None:
-            # the device LSM's pairwise sorted merges are built for the
-            # TPU (Pallas bitonic merge, 3.3G keys/s measured); XLA's CPU
-            # lax.sort runs them ~3 orders slower than the native host
-            # merge, so the CPU backend compacts each chunk and merges on
-            # host instead
+            # XLA's CPU lax.sort runs the device LSM's pairwise merges far
+            # slower than the native host merge, so the CPU backend
+            # compacts each chunk and merges on host instead
             import jax
 
             try:
@@ -341,7 +338,7 @@ class ShardedKmerCounter(KmerCounter):
     single-device counter (tests/test_parallel.py).
 
     Replaces the reference's `--cpu N` megahit count threads
-    (assemble_wrapper.py:210) with data parallelism over ICI (SURVEY §2
+    (assemble_wrapper.py:210) with data parallelism over the mesh (SURVEY §2
     parallelism table)."""
 
     def __init__(self, mesh, k: int, canonical: bool = True,
@@ -623,7 +620,7 @@ def add_mercy_edges(
             words, valid = kmer_ops.extract_kmers(ds, dl, kp1, right_aligned=ra)
             flat = [w.reshape(-1) for w in words]
             # gather-free membership (a binary search is log2(T) sequential
-            # gather rounds — catastrophic on TPU)
+            # gather rounds)
             member = kmer_ops.multiword_member_sorted(table_d, n_solid, flat)
             member = member.reshape(valid.shape) & valid
             # between two solid k-mers on the same read
@@ -668,7 +665,9 @@ def add_mercy_edges(
 
 
 def _run_graph_pass(keys: np.ndarray, counts: np.ndarray, k: int,
-                    mesh=None) -> dbg_ops.GraphPass:
+                    mesh=None, min_cap: int = 0) -> dbg_ops.GraphPass:
+    """``min_cap``: least edge capacity of the device pass, so the
+    shrinking edge sets of one cleaning fixpoint reuse one compiled pass."""
     E = len(keys)
     if E == 0:
         raise EmptyGraph(f"no solid edges at k={k}")
@@ -701,7 +700,7 @@ def _run_graph_pass(keys: np.ndarray, counts: np.ndarray, k: int,
         if on_cpu:
             # numpy mirror — same ids/labels, ~10x the XLA:CPU formulation
             return dbg_ops.graph_unitig_pass_host(keys, counts, k)
-    Ecap = _pad_pow2(E)
+    Ecap = max(_pad_pow2(E), min_cap)
     W = keys.shape[1]
     kw = [np.full(Ecap, 0xFFFFFFFF, np.uint32) for _ in range(W)]
     for w in range(W):
@@ -738,8 +737,9 @@ def assemble_k(
     """
     bubbles: List[Contig] = []
     stale = False  # last pass's unitigs predate a keys/counts filter
+    cap = _pad_pow2(len(keys))
     for _ in range(max_clean_rounds):
-        gp = _run_graph_pass(keys, counts, k, mesh=mesh)
+        gp = _run_graph_pass(keys, counts, k, mesh=mesh, min_cap=cap)
         n = int(gp.n_nodes)
         if n == 0:
             raise EmptyGraph(f"graph emptied at k={k}")
@@ -770,7 +770,7 @@ def assemble_k(
         # round's kill masks were applied to keys/counts but never
         # re-analyzed — regenerate unitigs from the filtered edge set so
         # killed branches cannot leak into contigs
-        gp = _run_graph_pass(keys, counts, k, mesh=mesh)
+        gp = _run_graph_pass(keys, counts, k, mesh=mesh, min_cap=cap)
         if int(gp.n_nodes) == 0:
             raise EmptyGraph(f"graph emptied at k={k}")
         uset = dbg_ops.unitig_set_from_pass(gp, k)

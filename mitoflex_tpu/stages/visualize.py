@@ -55,11 +55,18 @@ def visualize(
     max_depth_reads: Optional[int] = None,
     circular: bool = False,
 ) -> List[str]:
-    """Render the circular map; returns the list of files written."""
-    import matplotlib
+    """Render the circular map; returns the list of files written. The
+    PNG/SVG map needs matplotlib; without it only the track files and
+    circos.conf are written (with a warning)."""
+    try:
+        import matplotlib
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        plt = None
+        logger.warn("visualize: matplotlib is not installed; writing the "
+                    "tracks and circos.conf without the PNG/SVG map")
 
     os.makedirs(os.path.dirname(os.path.abspath(out_prefix)), exist_ok=True)
     outputs: List[str] = []
@@ -121,62 +128,63 @@ def visualize(
         rec = next(r for r in seqs if r.id == contig)
         return starts[contig] + scales[contig] * pos / max(len(rec.seq), 1)
 
-    fig = plt.figure(figsize=(10, 10))
-    ax = fig.add_subplot(projection="polar")
-    ax.set_theta_zero_location("N")
-    ax.set_theta_direction(-1)
-    ax.set_ylim(0, 1.25)
-    ax.axis("off")
+    if plt is not None:
+        fig = plt.figure(figsize=(10, 10))
+        ax = fig.add_subplot(projection="polar")
+        ax.set_theta_zero_location("N")
+        ax.set_theta_direction(-1)
+        ax.set_ylim(0, 1.25)
+        ax.axis("off")
 
-    # karyotype ring
-    for rec in seqs:
-        th = np.linspace(starts[rec.id], starts[rec.id] + scales[rec.id], 256)
-        ax.plot(th, np.full_like(th, 1.0), lw=10, color="#CCCCCC", solid_capstyle="butt")
-        mid = starts[rec.id] + scales[rec.id] / 2
-        ax.text(mid, 1.18, rec.id, ha="center", va="center", fontsize=12)
+        # karyotype ring
+        for rec in seqs:
+            th = np.linspace(starts[rec.id], starts[rec.id] + scales[rec.id], 256)
+            ax.plot(th, np.full_like(th, 1.0), lw=10, color="#CCCCCC", solid_capstyle="butt")
+            mid = starts[rec.id] + scales[rec.id] / 2
+            ax.text(mid, 1.18, rec.id, ha="center", va="center", fontsize=12)
 
-    colors = {0: cfg.color_cds, 1: cfg.color_trna, 2: cfg.color_rrna}
-    for gene, (start, end, kind, contig, strand) in locs.items():
-        cid = renamed.get(contig, contig)
-        if cid not in starts:
-            continue
-        t0, t1 = angle(cid, start), angle(cid, end)
-        th = np.linspace(t0, t1, max(int((t1 - t0) * 60), 2))
-        r = 1.0 if strand == "+" else 0.94
-        ax.plot(th, np.full_like(th, r), lw=8, color=colors.get(kind, "#888888"),
-                solid_capstyle="butt")
-        ax.text((t0 + t1) / 2, 1.09, gene, ha="center", va="center", fontsize=7,
-                rotation=0)
-
-    # GC histogram ring (0.62 .. 0.80)
-    for rec in seqs:
-        gc = gc_windows(rec.codes, cfg.gc_window)
-        th = starts[rec.id] + scales[rec.id] * (np.arange(len(gc)) + 0.5) / len(gc)
-        base, span = 0.62, 0.18
-        ax.vlines(th, base, base + span * gc, color="#7896C2", lw=0.6)
-    ax.text(0, 0.66, "GC", ha="center", fontsize=8, color="#7896C2")
-
-    # depth ring (0.38 .. 0.58)
-    if depth_per_contig is not None:
-        all_max = max((d.max() if len(d) else 1) for d in depth_per_contig) or 1
-        for i, rec in enumerate(seqs):
-            d = depth_per_contig[i]
-            if not len(d):
+        colors = {0: cfg.color_cds, 1: cfg.color_trna, 2: cfg.color_rrna}
+        for gene, (start, end, kind, contig, strand) in locs.items():
+            cid = renamed.get(contig, contig)
+            if cid not in starts:
                 continue
-            step = max(len(d) // 512, 1)
-            dd = d[::step]
-            th = starts[rec.id] + scales[rec.id] * np.arange(len(dd)) * step / len(d)
-            ax.plot(th, 0.38 + 0.20 * dd / all_max, lw=0.8, color="#C27878")
-        ax.text(0, 0.42, "depth", ha="center", fontsize=8, color="#C27878")
+            t0, t1 = angle(cid, start), angle(cid, end)
+            th = np.linspace(t0, t1, max(int((t1 - t0) * 60), 2))
+            r = 1.0 if strand == "+" else 0.94
+            ax.plot(th, np.full_like(th, r), lw=8, color=colors.get(kind, "#888888"),
+                    solid_capstyle="butt")
+            ax.text((t0 + t1) / 2, 1.09, gene, ha="center", va="center", fontsize=7,
+                    rotation=0)
 
-    ax.text(0, 0, f"{total:,} bp", ha="center", va="center", fontsize=14)
+        # GC histogram ring (0.62 .. 0.80)
+        for rec in seqs:
+            gc = gc_windows(rec.codes, cfg.gc_window)
+            th = starts[rec.id] + scales[rec.id] * (np.arange(len(gc)) + 0.5) / len(gc)
+            base, span = 0.62, 0.18
+            ax.vlines(th, base, base + span * gc, color="#7896C2", lw=0.6)
+        ax.text(0, 0.66, "GC", ha="center", fontsize=8, color="#7896C2")
 
-    png = f"{out_prefix}.png"
-    svg = f"{out_prefix}.svg"
-    fig.savefig(png, dpi=150, bbox_inches="tight")
-    fig.savefig(svg, bbox_inches="tight")
-    plt.close(fig)
-    outputs += [png, svg]
+        # depth ring (0.38 .. 0.58)
+        if depth_per_contig is not None:
+            all_max = max((d.max() if len(d) else 1) for d in depth_per_contig) or 1
+            for i, rec in enumerate(seqs):
+                d = depth_per_contig[i]
+                if not len(d):
+                    continue
+                step = max(len(d) // 512, 1)
+                dd = d[::step]
+                th = starts[rec.id] + scales[rec.id] * np.arange(len(dd)) * step / len(d)
+                ax.plot(th, 0.38 + 0.20 * dd / all_max, lw=0.8, color="#C27878")
+            ax.text(0, 0.42, "depth", ha="center", fontsize=8, color="#C27878")
+
+        ax.text(0, 0, f"{total:,} bp", ha="center", va="center", fontsize=14)
+
+        png = f"{out_prefix}.png"
+        svg = f"{out_prefix}.svg"
+        fig.savefig(png, dpi=150, bbox_inches="tight")
+        fig.savefig(svg, bbox_inches="tight")
+        plt.close(fig)
+        outputs += [png, svg]
 
     # machine-readable tracks + circos.conf for external re-rendering
     track_file = f"{out_prefix}.tracks.json"

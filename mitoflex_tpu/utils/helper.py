@@ -66,7 +66,7 @@ def some(iterable: Iterable[T], n: int = 1) -> bool:
 class StageTimer:
     """Context-manager accumulator for per-stage wall times and counters.
 
-    TPU-side replacement for the reference's ad-hoc byte-ratio logs
+    Replacement for the reference's ad-hoc byte-ratio logs
     (filter/filter.py:55-58): stages record items/bytes processed so the
     run report can show reads/s and bp/s per stage.
     """

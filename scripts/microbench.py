@@ -2,10 +2,10 @@
 
 Each kernel is wrapped in a device-side fori_loop with a per-iteration
 input perturbation and a scalar reduction readback, so the wall clock
-covers real executions regardless of async dispatch or remote result
-caching (see bench.py). Run on the target backend:
+covers real executions regardless of async dispatch or result caching
+(see bench.py). Run on the target backend:
 
-    python scripts/microbench.py [filter|kmer|viterbi|sw|genewise|psort|all]
+    python scripts/microbench.py [filter|kmer|viterbi|sw|genewise|mapper|merge|unitig|all]
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ sys.path.insert(0, ".")
 
 
 def _timed_loop(make_run, iters=20):
-    """Every invocation gets a fresh seed argument so the remote platform
-    cannot serve results from its (executable, inputs) cache."""
+    """Every invocation gets a fresh seed argument so no result can be
+    served from a cache of (executable, inputs)."""
     import numpy as np
 
     run_1, run_n = make_run(1), make_run(iters)
@@ -52,7 +52,7 @@ def bench_filter():
     ds = jnp.asarray(rng.integers(0, 4, (B, L)).astype(np.int8))
     dq = jnp.asarray(rng.integers(35, 74, (B, L)).astype(np.int8))
     dl = jnp.asarray(np.full(B, L, np.int32))
-    kern = F.filter_reads_pallas if jax.default_backend() == "tpu" else F.filter_reads_ref
+    kern = F.filter_reads_ref
 
     def make(iters):
         @jax.jit
@@ -232,54 +232,13 @@ def bench_mapper(B=65536, L=100, n_contigs=8, contig_len=18000):
     )
 
 
-def bench_psort(n=1 << 22, tile=1 << 14):
-    import jax
-    import jax.numpy as jnp
-
-    from mitoflex_tpu.ops import psort
-
-    rng = np.random.default_rng(0)
-    w0 = jnp.asarray(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32))
-    w1 = jnp.asarray(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32))
-
-    def make_xla(iters):
-        @jax.jit
-        def run(seed):
-            def body(i, acc):
-                s = jax.lax.sort([w0 ^ (i + seed).astype(jnp.uint32), w1], num_keys=2)
-                return acc + s[0][0].astype(jnp.int32)
-            return jax.lax.fori_loop(0, iters, body, jnp.int32(0))
-        return run
-
-    def make_pallas(iters):
-        @jax.jit
-        def run(seed):
-            def body(i, acc):
-                s0, _ = psort.bitonic_sort2(w0 ^ (i + seed).astype(jnp.uint32), w1, tile=tile)
-                return acc + s0[0].astype(jnp.int32)
-            return jax.lax.fori_loop(0, iters, body, jnp.int32(0))
-        return run
-
-    for name, mk in (("lax.sort2", make_xla), ("psort2", make_pallas)):
-        dt = _timed_loop(mk, iters=8)
-        print(f"{name:10s} n={n}: {dt*1e3:8.2f} ms  {n/dt/1e6:8.1f} Mkeys/s")
-
-
-def bench_merge(m=1 << 21, tile=1 << 13):
-    """LSM merge step: old two-sort merge_runs_device vs scattered lax.sort
-    merge vs the Pallas bitonic merge, on two m-row sorted runs (W=2 keys +
-    count payload). The bitonic network's cost is data-independent, so the
-    seed perturbation (which breaks sortedness) changes values but not
-    timing — it only defeats the remote result cache."""
-    import os
-
+def bench_merge(m=1 << 21):
+    """LSM merge step: old two-sort merge_runs_device vs the scattered
+    lax.sort merge, on two m-row sorted runs (W=2 keys + count payload)."""
     import jax
     import jax.numpy as jnp
 
     from mitoflex_tpu.ops import kmer as K
-    from mitoflex_tpu.ops import psort
-
-    rng = np.random.default_rng(0)
 
     def mk_run(seed):
         r = np.random.default_rng(seed)
@@ -318,21 +277,7 @@ def bench_merge(m=1 << 21, tile=1 << 13):
             return jax.lax.fori_loop(0, iters, body, jnp.int32(0))
         return run
 
-    def make_scat_pallas(iters):
-        @jax.jit
-        def run(seed):
-            def body(i, acc):
-                p = (i + seed).astype(jnp.uint32)
-                o = psort.merge_sorted_runs(
-                    [a0 ^ p, a1, ac], [b0, b1, bc], n_keys=2, tile=tile
-                )
-                return acc + o[0][0].astype(jnp.int32) + o[2][0].astype(jnp.int32)
-            return jax.lax.fori_loop(0, iters, body, jnp.int32(0))
-        return run
-
     variants = [("old 2sort", make_old), ("scat xla", make_scat_xla)]
-    if jax.default_backend() == "tpu" or os.environ.get("MITOFLEX_BENCH_INTERPRET"):
-        variants.append(("scat pallas", make_scat_pallas))
     for name, mk in variants:
         dt = _timed_loop(mk, iters=8)
         print(f"{name:12s} 2x{m}: {dt*1e3:8.2f} ms  {2*m/dt/1e6:8.1f} Mkeys/s")
@@ -410,11 +355,9 @@ if __name__ == "__main__":
     print(f"backend: {jax.default_backend()}")
     table = {
         "filter": bench_filter, "kmer": bench_kmer, "viterbi": bench_viterbi,
-        "sw": bench_sw, "genewise": bench_genewise, "psort": bench_psort,
+        "sw": bench_sw, "genewise": bench_genewise,
         "mapper": bench_mapper, "merge": bench_merge, "unitig": bench_unitig,
     }
     for name, fn in table.items():
         if which in (name, "all"):
             fn()
-
-

@@ -1,8 +1,8 @@
 """Regression tests for the round-1 advisor findings (ADVICE.md) and
 VERDICT.md weak #1 (logger.warning AttributeError)."""
 
-import functools
 import math
+import os
 import types
 
 import numpy as np
@@ -57,6 +57,9 @@ def test_cm_evalue_survival_clamped():
     assert e_hi < e_low
 
 
+@pytest.mark.skipif(
+    not os.path.isfile("/root/reference/profile/tRNA_CM/Metazoa_K.cm"),
+    reason="reference CMs not mounted")
 def test_local_config_begin_mass_sums_to_one():
     """local_config begin scores form a probability distribution even for
     degenerate guide trees (ADVICE: node 1 not a begin candidate)."""
@@ -93,31 +96,6 @@ def test_cli_fractional_trimming(tmp_path):
     assert r2.returncode == 2
     assert "config error" in r2.stderr
     assert "Traceback" not in r2.stderr
-
-
-def test_pallas_sort_tiny_chunk(monkeypatch, rng):
-    """A chunk with fewer than 128 candidate k-mers still sorts through the
-    MITOFLEX_PALLAS_SORT path (pad to >= one full lane row; ADVICE #3)."""
-    from mitoflex_tpu.ops import kmer as K
-    from mitoflex_tpu.ops import psort
-
-    k = 31
-    seqs = rng.integers(0, 4, (2, 40)).astype(np.int8)
-    lengths = np.full(2, 40, np.int32)
-    base_keys, base_counts = K.count_chunk_host(seqs, lengths, k, canonical=True)
-
-    monkeypatch.setenv("MITOFLEX_PALLAS_SORT", "1")
-    monkeypatch.setattr(
-        psort, "bitonic_sort2",
-        functools.partial(psort.bitonic_sort2.__wrapped__, interpret=True),
-    )
-    K.count_chunk_runs.clear_cache()
-    try:
-        keys, counts = K.count_chunk_host(seqs, lengths, k, canonical=True)
-    finally:
-        K.count_chunk_runs.clear_cache()
-    np.testing.assert_array_equal(keys, base_keys)
-    np.testing.assert_array_equal(counts, base_counts)
 
 
 # --- Round-2 advisor findings ---

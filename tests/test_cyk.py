@@ -322,6 +322,7 @@ def test_banded_local_truncated_rrna(rng):
     assert loc.mdl_to > int(m.clen * 0.5)
 
 
+@needs_ref
 def test_banded_matches_exact_on_trna(lys_model, rng):
     """With any reasonable slack the banded CYK equals the exact DP on a
     planted consensus (bands contain the optimal parse)."""
@@ -341,6 +342,7 @@ def test_banded_matches_exact_on_trna(lys_model, rng):
         assert banded.seq_to == exact.seq_to
 
 
+@needs_ref
 def test_node_subtree_spans_cover_model(lys_model):
     spans = cyk.node_subtree_spans(lys_model)
     assert spans[0] == (0, lys_model.clen)          # ROOT covers everything

@@ -50,22 +50,6 @@ def test_filter_hash_distinguishes_reads():
     assert (h1[0], h2[0]) != (h1[1], h2[1])
 
 
-def test_filter_pallas_interpret_parity():
-    """Pallas kernel (interpret mode on CPU) matches the jnp reference."""
-    rng = np.random.default_rng(0)
-    n, L = 256, 128
-    seqs = rng.integers(0, 5, size=(n, L)).astype(np.int8)
-    quals = rng.integers(35, 74, size=(n, L)).astype(np.int8)
-    lengths = rng.integers(1, L + 1, size=n).astype(np.int32)
-    ref = filter_ops.filter_reads_ref(seqs, quals, lengths, 10, 55, 0.2)
-    pal = filter_ops.filter_reads_pallas(
-        seqs, quals, lengths, 10, 55, 0.2, block_reads=128, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(ref[0]), np.asarray(pal[0]))
-    np.testing.assert_array_equal(np.asarray(ref[1]), np.asarray(pal[1]))
-    np.testing.assert_array_equal(np.asarray(ref[2]), np.asarray(pal[2]))
-
-
 def test_filter_stage_se(tmp_path, rng):
     genome = synth.random_genome(rng, 2000)
     reads = synth.shotgun_reads(rng, genome, 200, read_len=100)

@@ -328,91 +328,6 @@ def test_multiword_member_sorted_all_ones_collision():
     np.testing.assert_array_equal(got2, [True, True, False])
 
 
-def test_pallas_bitonic_sort_matches_lax_sort():
-    """Interpret-mode bitonic sort == lax.sort on 2-word keys, including
-    duplicates and all-ones sentinels (the k-mer padding contract)."""
-    import jax.numpy as jnp
-    from mitoflex_tpu.ops import psort
-
-    rng = np.random.default_rng(3)
-    N, tile = 1 << 15, 1 << 13
-    w0 = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
-    w1 = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
-    w0[:64] = w0[64:128]
-    w1[:64] = w1[64:128]
-    w0[-32:] = 0xFFFFFFFF
-    w1[-32:] = 0xFFFFFFFF
-    s0, s1 = psort.bitonic_sort2(
-        jnp.asarray(w0), jnp.asarray(w1), tile=tile, interpret=True
-    )
-    import jax
-    r0, r1 = jax.lax.sort([jnp.asarray(w0), jnp.asarray(w1)], num_keys=2)
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(r0))
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(r1))
-
-
-def test_count_chunk_runs_pallas_sort_gate(monkeypatch, rng):
-    """The MITOFLEX_PALLAS_SORT path produces the same (key, count) table
-    as the default lax.sort path (W=2, interpret mode on CPU)."""
-    import functools
-
-    from mitoflex_tpu.ops import kmer as K
-    from mitoflex_tpu.ops import psort
-
-    k = 31  # (k+1)=32 bases -> exactly 2 words
-    seqs = rng.integers(0, 4, (64, 100)).astype(np.int8)
-    lengths = np.full(64, 100, np.int32)
-    base_keys, base_counts = K.count_chunk_host(seqs, lengths, k, canonical=True)
-
-    monkeypatch.setenv("MITOFLEX_PALLAS_SORT", "1")
-    monkeypatch.setattr(
-        psort, "bitonic_sort2",
-        functools.partial(psort.bitonic_sort2.__wrapped__, interpret=True),
-    )
-    K.count_chunk_runs.clear_cache()
-    try:
-        keys, counts = K.count_chunk_host(seqs, lengths, k, canonical=True)
-    finally:
-        K.count_chunk_runs.clear_cache()
-    np.testing.assert_array_equal(keys, base_keys)
-    np.testing.assert_array_equal(counts, base_counts)
-
-
-def test_pallas_merge_sorted_runs_interpret():
-    """Interpret-mode bitonic run MERGE == lax.sort of the concat, keys
-    AND payload association (payload order within an equal-key run is
-    unspecified — canonicalize by re-sorting rows by (key, payload))."""
-    import jax
-    from mitoflex_tpu.ops import psort
-
-    rng = np.random.default_rng(7)
-    for m, tile in ((128, 128), (1 << 12, 1 << 10), (1 << 12, 1 << 13)):
-        def mk(seed):
-            r = np.random.default_rng(seed)
-            k0 = r.integers(0, 50, m, dtype=np.uint64).astype(np.uint32)
-            k1 = r.integers(0, 2**32, m, dtype=np.uint64).astype(np.uint32)
-            k0[-m // 8:] = 0xFFFFFFFF  # padding block
-            k1[-m // 8:] = 0xFFFFFFFF
-            pay = r.integers(0, 2**31, m, dtype=np.uint64).astype(np.uint32)
-            order = np.lexsort((k1, k0))
-            return k0[order], k1[order], pay[order]
-
-        a = mk(rng.integers(1 << 30))
-        b = mk(rng.integers(1 << 30))
-        got = psort.merge_sorted_runs(
-            [jnp.asarray(x) for x in a], [jnp.asarray(x) for x in b],
-            n_keys=2, tile=tile, interpret=True,
-        )
-        g = [np.asarray(x) for x in got]
-        cat = [np.concatenate([x, y]) for x, y in zip(a, b)]
-        want = [np.asarray(x) for x in jax.lax.sort(
-            [jnp.asarray(c) for c in cat], num_keys=3
-        )]
-        canon = np.lexsort((g[2], g[1], g[0]))
-        for gx, wx in zip(g, want):
-            np.testing.assert_array_equal(gx[canon], wx)
-
-
 def test_count_chunk_scattered_matches_host(rng):
     g = synth.random_genome(rng, 400)
     reads = [r for r, _ in synth.shotgun_reads(rng, g, 40, read_len=70)]
@@ -463,79 +378,6 @@ def test_scattered_lsm_matches_host_merge(rng):
     want_k, want_c = kmer_ops.merge_sorted_counts(w1[0], w1[1], kc, cc_)
     np.testing.assert_array_equal(got_k, want_k)
     np.testing.assert_array_equal(got_c, want_c)
-
-
-def test_merge_scattered_pallas_gate(monkeypatch, rng):
-    """MITOFLEX_PALLAS_MERGE=1 routes merge_scattered through the bitonic
-    merge kernel (interpret mode on CPU) with identical results."""
-    import functools
-
-    from mitoflex_tpu.ops import kmer as K
-    from mitoflex_tpu.ops import psort
-
-    def mk(seed, cap):
-        r = np.random.default_rng(seed)
-        w0 = np.sort(r.integers(0, 40, cap, dtype=np.uint64).astype(np.uint32))
-        w1 = r.integers(0, 2**32, cap, dtype=np.uint64).astype(np.uint32)
-        order = np.lexsort((w1, w0))
-        cnt = r.integers(0, 9, cap, dtype=np.uint64).astype(np.uint32)
-        return [jnp.asarray(w0[order]), jnp.asarray(w1[order])], jnp.asarray(cnt)
-
-    aw, ac = mk(5, 256)
-    bw, bc = mk(6, 128)  # unequal: exercises the pad-to-larger path
-    base = K.merge_scattered(aw, ac, bw, bc)
-    base_k, base_c = K.pull_scattered(base[0], base[1])
-
-    monkeypatch.setenv("MITOFLEX_PALLAS_MERGE", "1")
-    monkeypatch.setattr(
-        psort, "merge_sorted_runs",
-        functools.partial(psort.merge_sorted_runs.__wrapped__, interpret=True),
-    )
-    K.merge_scattered.clear_cache()
-    try:
-        got = K.merge_scattered(aw, ac, bw, bc)
-        got_k, got_c = K.pull_scattered(got[0], got[1])
-    finally:
-        K.merge_scattered.clear_cache()
-    np.testing.assert_array_equal(got_k, base_k)
-    np.testing.assert_array_equal(got_c, base_c)
-
-
-def test_pallas_mergepath_onepass_interpret():
-    """Interpret-mode ONE-PASS merge-path merge == lax.sort of the concat,
-    incl. a real all-ones key run (exercises the pad-flag tiebreak that
-    keeps in-tile pads from displacing real payloads) and a skewed pair
-    (extreme partitions: one run's keys all smaller)."""
-    import jax
-    from mitoflex_tpu.ops import psort
-
-    rng = np.random.default_rng(17)
-    for m, tile, skew in ((1 << 12, 1 << 10, 0), (512, 256, 0),
-                          (1 << 12, 1 << 12, 1000)):
-        def mk(seed, add):
-            r = np.random.default_rng(seed)
-            k0 = r.integers(0, 60, m, dtype=np.uint64).astype(np.uint32) + add
-            k1 = r.integers(0, 2**32, m, dtype=np.uint64).astype(np.uint32)
-            k0[-m // 8:] = 0xFFFFFFFF
-            k1[-m // 8:] = 0xFFFFFFFF
-            pay = r.integers(0, 2**31, m, dtype=np.uint64).astype(np.uint32)
-            order = np.lexsort((k1, k0))
-            return k0[order], k1[order], pay[order]
-
-        a = mk(int(rng.integers(1 << 30)), 0)
-        b = mk(int(rng.integers(1 << 30)), skew)
-        got = psort.merge_sorted_runs_onepass(
-            [jnp.asarray(x) for x in a], [jnp.asarray(x) for x in b],
-            n_keys=2, tile=tile, interpret=True,
-        )
-        g = [np.asarray(x) for x in got]
-        cat = [np.concatenate([x, y]) for x, y in zip(a, b)]
-        want = [np.asarray(x) for x in jax.lax.sort(
-            [jnp.asarray(c) for c in cat], num_keys=3
-        )]
-        canon = np.lexsort((g[2], g[1], g[0]))
-        for gx, wx in zip(g, want):
-            np.testing.assert_array_equal(gx[canon], wx)
 
 
 def test_kmer_counter_spill_path(rng):
@@ -607,3 +449,34 @@ def test_count_chunk_numpy2_parity(rng):
                                                  canonical=canonical)
             np.testing.assert_array_equal(k1, k2)
             np.testing.assert_array_equal(c1.astype(np.uint64), c2)
+
+
+@pytest.mark.parametrize("k", [31, 39, 59, 79, 99, 119, 141])
+def test_scattered_chain_matches_host_route_default_klist(k):
+    """The device LSM route at every k of the default k-list ((k+1)-mer
+    keys up to W=9): count_chunk_scattered per chunk plus a chain of
+    merge_scattered equals the CPU backend's host route (per-chunk host
+    counting + merge_sorted_counts), keys and uint64 totals exact."""
+    from mitoflex_tpu.stages import assemble as asm
+
+    rng = np.random.default_rng(k)
+    genome = synth.random_genome(rng, 900)
+    chunks = []
+    for _ in range(3):
+        reads = [r for r, _ in synth.shotgun_reads(
+            rng, genome, 24, read_len=150, circular=True, error_rate=0.01)]
+        chunks.append(_to_batch(reads, 160))
+    kp1 = k + 1
+    runs = [kmer_ops.count_chunk_scattered(jnp.asarray(s), jnp.asarray(l), kp1, True)
+            for s, l in chunks]
+    merged = runs[0]
+    for r in runs[1:]:
+        merged = kmer_ops.merge_scattered(merged[0], merged[1], r[0], r[1])
+    got_k, got_c = kmer_ops.pull_scattered(*merged)
+    host = asm.KmerCounter(kp1, canonical=True, prefer_host=True)
+    for s, l in chunks:
+        host.add_chunk(s, l)
+    want_k, want_c = host._merged()
+    assert got_k.shape[1] == kmer_ops.num_words(kp1)
+    np.testing.assert_array_equal(got_k, want_k)
+    np.testing.assert_array_equal(got_c, want_c)

@@ -221,3 +221,18 @@ def test_visualize_max_depth_reads_cap(tmp_path, rng):
     assert tracks["depth_mean"]["mt1"] > 0
     # cap only SAMPLES the remap — gene/feature tracks are unaffected
     assert len(tracks["genes"]) == 1
+
+
+def test_visualize_without_matplotlib(tmp_path, rng, monkeypatch):
+    """Without matplotlib the stage still writes the tracks and the
+    circos.conf (only the PNG/SVG map is skipped)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    g = synth.random_genome(rng, 1500)
+    rec = FastaRecord("scaffold1", g, {"flag": 1, "multi": 100, "len": 1500})
+    locs = {"COX1": (100, 500, 0, "scaffold1", "+")}
+    outs = vis.visualize(VisualizeConfig(), [rec], locs, str(tmp_path / "p"))
+    assert not any(o.endswith((".png", ".svg")) for o in outs)
+    assert os.path.exists(tmp_path / "p.tracks.json")
+    assert os.path.exists(tmp_path / "p.circos.conf")

@@ -140,54 +140,31 @@ def test_graft_entry_and_dryrun():
     ge.dryrun_multichip(2)
 
 
-def test_partitioned_merge_pallas_path(mesh8, rng, monkeypatch):
-    """The partitioned merge with the Pallas bitonic merge FORCED
-    (interpret mode): regression for the bucket-clipping bug where
-    masking out-of-bucket KEYS to all-ones put padding at the FRONT of a
-    clipped bucket, breaking the ascending-run precondition the Pallas
-    merge needs (the CPU lax.sort fallback full-sorts and hid it).
-    Random near-unique keys make lo[last] > M - C, so clipping engages."""
-    import functools
-
-    from mitoflex_tpu.ops import psort
-
+def test_partitioned_merge_clipped_buckets(mesh8, rng):
+    """The all_to_all-partitioned merge when bucket windows are clipped
+    (start < lo[j]): foreign keys ride with count 0 and the merged table
+    still equals the single-device count. Random near-unique keys make
+    lo[last] > M - C, so clipping engages."""
     # FULL-length random reads: nearly every window is valid and unique,
-    # so nu ~ M and the last buckets start past M - C — without this the
-    # clip never fires and the test cannot bite
+    # so nu ~ M and the last buckets start past M - C
     seqs = rng.integers(0, 4, size=(64, 96)).astype(np.int8)
     lengths = np.full(64, 96, np.int32)
     k = 21
     ds, dl = mesh_mod.shard_batch(mesh8, jnp.asarray(seqs), jnp.asarray(lengths))
-
-    monkeypatch.setenv("MITOFLEX_PALLAS_MERGE", "1")
-    monkeypatch.setattr(
-        psort, "merge_sorted_runs",
-        functools.partial(psort.merge_sorted_runs.__wrapped__, interpret=True),
+    words_p, counts_p, n_per, overflow = (
+        mesh_mod.count_kmers_sharded_partitioned(mesh8, ds, dl, k)
     )
-    kmer_ops.merge_scattered.clear_cache()
-    mesh_mod.count_kmers_sharded_partitioned.clear_cache()
-    try:
-        words_p, counts_p, n_per, overflow = (
-            mesh_mod.count_kmers_sharded_partitioned(mesh8, ds, dl, k)
-        )
-        n_per = np.asarray(n_per)
-        ndev = 8
-        shard_rows = counts_p.shape[0] // ndev
-        got_keys, got_counts = [], []
-        for d in range(ndev):
-            nu = int(n_per[d])
-            rows = slice(d * shard_rows, d * shard_rows + nu)
-            got_keys.append(kmer_ops.words_to_np_keys(
-                [np.asarray(w)[rows] for w in words_p]))
-            got_counts.append(np.asarray(counts_p)[rows])
-    finally:
-        kmer_ops.merge_scattered.clear_cache()
-        mesh_mod.count_kmers_sharded_partitioned.clear_cache()
     assert int(overflow) == 0
-    got_keys = np.concatenate(got_keys)
-    got_counts = np.concatenate(got_counts)
+    n_per = np.asarray(n_per)
+    shard_rows = counts_p.shape[0] // 8
+    got_keys, got_counts = [], []
+    for d in range(8):
+        rows = slice(d * shard_rows, d * shard_rows + int(n_per[d]))
+        got_keys.append(kmer_ops.words_to_np_keys(
+            [np.asarray(w)[rows] for w in words_p]))
+        got_counts.append(np.asarray(counts_p)[rows])
     uw, uc, nu = kmer_ops.count_chunk(jnp.asarray(seqs), jnp.asarray(lengths), k)
     nu = int(nu)
     want_keys = kmer_ops.words_to_np_keys([np.asarray(w)[:nu] for w in uw])
-    np.testing.assert_array_equal(got_keys, want_keys)
-    np.testing.assert_array_equal(got_counts, np.asarray(uc)[:nu])
+    np.testing.assert_array_equal(np.concatenate(got_keys), want_keys)
+    np.testing.assert_array_equal(np.concatenate(got_counts), np.asarray(uc)[:nu])
